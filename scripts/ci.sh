@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # CI entry: CPU test suite (8 virtual devices for mesh tests).
 #
-# Default tier skips @pytest.mark.slow tests and finishes in ~7 min on
-# this box; `scripts/ci.sh --all` runs the full suite (~30 min).
+# Default tier skips @pytest.mark.slow tests; `scripts/ci.sh --all` runs
+# the full suite (about four times as long).
 # Any other arguments pass through to pytest.
 set -euo pipefail
 cd "$(dirname "$0")/.."

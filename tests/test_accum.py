@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import (
+from gluon_e2e_asr.config import (
     Config,
     DataConfig,
     FrontendConfig,
@@ -19,12 +19,12 @@ from gluon_e2e_asr_tpu.config import (
     ModelConfig,
     TrainConfig,
 )
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import build_synthetic_manifest
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.manifest import build_synthetic_manifest
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.training.train_step import (
     accumulate_grads,
     create_train_state,
     make_apply_step,
@@ -109,7 +109,7 @@ def test_accum_two_micro_batches_match_one_big_batch():
 def test_accum_trainer_counts_optimizer_steps(tmp_path):
     """5 batches/epoch at accum=2 -> 3 optimizer steps (2 full groups +
     the remainder flush); resume bookkeeping counts optimizer steps."""
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.training.trainer import Trainer
 
     cfg = Config(
         data=DataConfig(dataset="synthetic", synth_num_train=10,
@@ -134,7 +134,7 @@ def test_accum_trainer_counts_optimizer_steps(tmp_path):
 def test_early_stop_patience(tmp_path, monkeypatch):
     """train.early_stop_patience halts after N stale epochs; the best
     checkpoint tracking is unaffected (scripted dev WERs)."""
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.training.trainer import Trainer
 
     cfg = Config(
         data=DataConfig(dataset="synthetic", synth_num_train=4,
@@ -162,7 +162,7 @@ def test_early_stop_patience(tmp_path, monkeypatch):
 
 @pytest.mark.slow
 def test_accum_grad_step_dp_matches_single_device():
-    from gluon_e2e_asr_tpu.parallel.mesh import make_mesh, shard_batch_arrays
+    from gluon_e2e_asr.parallel.mesh import make_mesh, shard_batch_arrays
 
     cfg, model, tx, state, full = _setup()
     cfg.train.dp = True

@@ -11,10 +11,10 @@ import numpy as np
 import optax
 import pytest
 
-from gluon_e2e_asr_tpu.config import (
+from gluon_e2e_asr.config import (
     Config, DataConfig, LossConfig, ModelConfig, TrainConfig,
 )
-from gluon_e2e_asr_tpu.training.train_step import decay_opt_eps
+from gluon_e2e_asr.training.train_step import decay_opt_eps
 
 
 def _adadelta_cfg(**kw):
@@ -24,7 +24,7 @@ def _adadelta_cfg(**kw):
 
 
 def test_adadelta_optimizes_quadratic():
-    from gluon_e2e_asr_tpu.training.train_step import make_optimizer
+    from gluon_e2e_asr.training.train_step import make_optimizer
 
     # eps=1e-2 for the unit test: adadelta's first steps scale like
     # sqrt(eps), so the production 1e-8 needs thousands of iterations to
@@ -45,7 +45,7 @@ def test_adadelta_optimizes_quadratic():
 
 
 def test_decay_opt_eps_scales_injected_eps():
-    from gluon_e2e_asr_tpu.training.train_step import make_optimizer
+    from gluon_e2e_asr.training.train_step import make_optimizer
 
     tx = make_optimizer(_adadelta_cfg())
     params = {"w": jnp.ones((3,))}
@@ -63,7 +63,7 @@ def test_decay_opt_eps_scales_injected_eps():
 def test_decay_opt_eps_floors_at_f32_tiny():
     """Repeated annealing must never underflow eps to exactly 0 (a
     measured mid-training NaN source — BASELINE.md round-2 soaks)."""
-    from gluon_e2e_asr_tpu.training.train_step import make_optimizer
+    from gluon_e2e_asr.training.train_step import make_optimizer
 
     tx = make_optimizer(_adadelta_cfg())
     state = tx.init({"w": jnp.ones((2,))})
@@ -79,8 +79,8 @@ def test_plateau_anneal_patience_gating():
     of consecutive no-best epochs."""
     from types import SimpleNamespace
 
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
-    from gluon_e2e_asr_tpu.training.train_step import make_optimizer
+    from gluon_e2e_asr.training.trainer import Trainer
+    from gluon_e2e_asr.training.train_step import make_optimizer
 
     cfg = _adadelta_cfg(eps_decay=0.01, eps_decay_patience=3)
     tx = make_optimizer(cfg)
@@ -102,7 +102,7 @@ def test_plateau_anneal_patience_gating():
 
 
 def test_decay_opt_eps_noop_for_adam():
-    from gluon_e2e_asr_tpu.training.train_step import make_optimizer
+    from gluon_e2e_asr.training.train_step import make_optimizer
 
     tx = make_optimizer(Config(train=TrainConfig(optimizer="adam")))
     state = tx.init({"w": jnp.ones((2,))})
@@ -113,14 +113,14 @@ def test_decay_opt_eps_noop_for_adam():
 
 
 def test_annealed_eps_survives_serialization():
-    import flax.serialization as fs
-
-    from gluon_e2e_asr_tpu.training.train_step import make_optimizer
+    from gluon_e2e_asr.training.train_step import make_optimizer
+    from gluon_e2e_asr.utils import serialization as ser
 
     tx = make_optimizer(_adadelta_cfg())
     state = tx.init({"w": jnp.ones((2,))})
     new_state, _, _ = decay_opt_eps(state, 0.01)
-    back = fs.from_bytes(new_state, fs.to_bytes(new_state))
+    blob = ser.msgpack_serialize(ser.to_state_dict(new_state))
+    back = ser.from_state_dict(new_state, ser.msgpack_restore(blob))
 
     def find_eps(s):
         if hasattr(s, "hyperparams"):
@@ -140,12 +140,12 @@ def test_adadelta_dp_shard_map_step_runs():
     DP step (replicated opt state incl. the eps scalar) on the 8-device
     virtual mesh, and decay_opt_eps keeps the state usable between
     steps."""
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.parallel.mesh import (
+    from gluon_e2e_asr.data.tokenizer import CharTokenizer
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.parallel.mesh import (
         make_mesh, shard_batch_arrays,
     )
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer, make_train_step,
     )
 
@@ -187,10 +187,10 @@ def test_params_only_restore_across_optimizers(tmp_path):
     params_only=True (the decode/transcribe mode). Regression for the
     measured decode failure: 'size of the list and the state dict do
     not match, got 3 and 4 at path ./opt_state/1'."""
-    from gluon_e2e_asr_tpu.training.checkpoint import (
+    from gluon_e2e_asr.training.checkpoint import (
         restore_checkpoint, save_checkpoint,
     )
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.training.train_step import (
         TrainState, make_optimizer,
     )
 
@@ -218,7 +218,7 @@ def test_params_only_restore_across_optimizers(tmp_path):
 def test_trainer_plateau_anneal_and_restore(tmp_path):
     """A run whose dev WER plateaus emits eps_decay events, restores the
     best params, and checkpoints the annealed eps for resume."""
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.training.trainer import Trainer
 
     cfg = Config(
         data=DataConfig(synth_num_train=8, synth_num_dev=4, batch_size=4,
@@ -248,7 +248,7 @@ def test_trainer_plateau_anneal_and_restore(tmp_path):
     assert decays[0]["restored_best"] in (True, False)
     assert bests >= 1  # epoch 0 is always a best
     # the checkpointed opt state carries the annealed eps
-    from gluon_e2e_asr_tpu.training.checkpoint import (
+    from gluon_e2e_asr.training.checkpoint import (
         latest_checkpoint, restore_checkpoint,
     )
 

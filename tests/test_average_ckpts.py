@@ -15,19 +15,19 @@ from average_ckpts import (  # noqa: E402
     ordered_last_ckpts,
 )
 
-from gluon_e2e_asr_tpu.config import (
+from gluon_e2e_asr.config import (
     Config,
     LossConfig,
     ModelConfig,
     TrainConfig,
 )
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.training.checkpoint import (
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.training.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.training.train_step import (
     create_train_state,
     make_optimizer,
 )

@@ -7,7 +7,7 @@ auto-enables partial CTC scoring (2*beam_size) and end_detect; explicit
 import json
 import os
 
-from gluon_e2e_asr_tpu import decode as decode_cli
+from gluon_e2e_asr import decode as decode_cli
 
 GOLD = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

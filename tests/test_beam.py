@@ -11,15 +11,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import Config, DataConfig, DecodeConfig, LossConfig, ModelConfig, TrainConfig
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.decoding.beam import (
+from gluon_e2e_asr.config import Config, DataConfig, DecodeConfig, LossConfig, ModelConfig, TrainConfig
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.decoding.beam import (
     NEG_INF,
     _ctc_extension_scores,
     _logaddexp,
     make_beam_decoder,
 )
-from gluon_e2e_asr_tpu.ops.ctc import ctc_forward_alpha
+from gluon_e2e_asr.ops.ctc import ctc_forward_alpha
 
 
 def _rand_logp(B, T, V, seed=0):
@@ -102,7 +102,7 @@ def test_prefix_scores_sane_distribution():
 
 
 def _tiny_model_setup(seed=0):
-    from gluon_e2e_asr_tpu.models.asr import build_model
+    from gluon_e2e_asr.models.asr import build_model
 
     cfg = Config(
         model=ModelConfig(enc_hidden=24, enc_layers=1, enc_subsample=(2,),
@@ -118,7 +118,7 @@ def _tiny_model_setup(seed=0):
     audio = rng.randn(2, 8000).astype(np.float32) * 0.1
     audio_len = np.array([8000, 6000], np.int32)
     # init params
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer,
     )
 
@@ -154,7 +154,7 @@ def test_beam_k1_att_only_matches_greedy_att():
     texts, _ = decode(state.params, jnp.asarray(audio), jnp.asarray(audio_len))
 
     # reference: greedy attention decode via decoder_step
-    from gluon_e2e_asr_tpu.frontend.features import frontend_apply
+    from gluon_e2e_asr.frontend.features import frontend_apply
 
     feats, feat_len = frontend_apply(cfg.frontend, jnp.asarray(audio),
                                      jnp.asarray(audio_len), train=False)
@@ -212,7 +212,7 @@ def test_beam_full_width_matches_exhaustive_search():
     cfg, tok, model, state, audio, audio_len = _tiny_model_setup(seed=9)
     audio, audio_len = audio[:1], audio_len[:1]  # B=1
 
-    from gluon_e2e_asr_tpu.frontend.features import frontend_apply
+    from gluon_e2e_asr.frontend.features import frontend_apply
 
     feats, feat_len = frontend_apply(cfg.frontend, jnp.asarray(audio),
                                      jnp.asarray(audio_len), train=False)
@@ -282,8 +282,8 @@ def test_beam_full_width_joint_matches_exhaustive_search():
     # Small alphabet: the hypothesis count (and so the required beam
     # width) shrinks quadratically, keeping the full-vocab CTC scoring
     # at K=73 instead of K=813.
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer,
     )
 
@@ -305,7 +305,7 @@ def test_beam_full_width_joint_matches_exhaustive_search():
         "label_len": np.array([6], np.int32),
     })
 
-    from gluon_e2e_asr_tpu.frontend.features import frontend_apply
+    from gluon_e2e_asr.frontend.features import frontend_apply
 
     feats, feat_len = frontend_apply(cfg.frontend, jnp.asarray(audio),
                                      jnp.asarray(audio_len), train=False)
@@ -442,8 +442,8 @@ def test_end_detect_default_margin_on_trained_model():
     the 1-best outputs identical while executing FEWER loop steps than
     the exact search (a confident model's endings leave nothing within
     the margin afterwards)."""
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state,
         make_optimizer,
         make_train_step,
@@ -540,8 +540,8 @@ class _BigVocabTok:
 
 
 def _big_vocab_setup(n_cand):
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer,
     )
 

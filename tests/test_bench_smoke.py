@@ -1,8 +1,7 @@
-"""Smoke-test the driver benchmark artifact (bench.py) on CPU.
+"""Smoke-test the benchmark (bench.py) on CPU.
 
-bench.py is the round-end driver deliverable; a regression in its
-build/measure path would otherwise only surface when the driver runs it
-on the TPU. Tiny shapes, flagship architecture, one step.
+A regression in its build/measure path would otherwise only surface on
+the GPU. Tiny shapes, flagship architecture, one step.
 """
 
 import os

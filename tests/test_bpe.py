@@ -7,7 +7,7 @@ import json
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.data.tokenizer import (
+from gluon_e2e_asr.data.tokenizer import (
     WORD_MARK,
     CharTokenizer,
     SubwordTokenizer,
@@ -99,7 +99,7 @@ def test_encode_matches_hand_example():
 
 
 def test_build_tokenizer_dispatch():
-    from gluon_e2e_asr_tpu.config import Config
+    from gluon_e2e_asr.config import Config
 
     cfg = Config()
     assert isinstance(build_tokenizer(cfg, CORPUS), CharTokenizer)
@@ -123,8 +123,8 @@ def test_labels_shorter_than_char(tmp_path):
 def test_bpe_end_to_end_train_decode(tmp_path):
     """Tiny BPE run: train a few steps, checkpoint, decode restores the
     subword vocab from the meta sidecar and produces text (not ids)."""
-    from gluon_e2e_asr_tpu import decode as decode_cli
-    from gluon_e2e_asr_tpu import train as train_cli
+    from gluon_e2e_asr import decode as decode_cli
+    from gluon_e2e_asr import train as train_cli
 
     cfgdir = tmp_path / "work"
     cfgdir.mkdir()
@@ -135,7 +135,6 @@ def test_bpe_end_to_end_train_decode(tmp_path):
         "model.enc_hidden=32", "model.enc_layers=1",
         "model.dec_hidden=32", "model.att_dim=16",
         "train.num_epochs=1", "train.max_steps=2",
-        "frontend.impl=jnp",
     ]
     train_cli.main(["--workdir", str(cfgdir)]
                    + sum((["--set", o] for o in overrides), []))

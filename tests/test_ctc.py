@@ -9,7 +9,7 @@ import numpy as np
 import optax
 import pytest
 
-from gluon_e2e_asr_tpu.ops.ctc import (
+from gluon_e2e_asr.ops.ctc import (
     ctc_forward_alpha,
     ctc_greedy_decode,
     ctc_loss,

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.ops.ctc import (
+from gluon_e2e_asr.ops.ctc import (
     _expand_labels,
     ctc_forward_alpha,
     ctc_viterbi_align,

@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import Config, DecodeConfig, LossConfig, ModelConfig
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.decoding.beam import make_beam_decoder
-from gluon_e2e_asr_tpu.frontend.features import frontend_apply
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.ops.ctc import ctc_forward_alpha
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.config import Config, DecodeConfig, LossConfig, ModelConfig
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.decoding.beam import make_beam_decoder
+from gluon_e2e_asr.frontend.features import frontend_apply
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.ops.ctc import ctc_forward_alpha
+from gluon_e2e_asr.training.train_step import (
     create_train_state,
     make_optimizer,
 )

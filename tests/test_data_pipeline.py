@@ -4,15 +4,15 @@ native packer parity [SURVEY.md §4]."""
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.data.loader import Batch, DataLoader, _pack_python
-from gluon_e2e_asr_tpu.data.manifest import (
+from gluon_e2e_asr.data.loader import Batch, DataLoader, _pack_python
+from gluon_e2e_asr.data.manifest import (
     build_synthetic_manifest,
     load_manifest,
     save_manifest,
     synth_waveform,
 )
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
 
 
 def test_synth_waveform_deterministic():
@@ -110,7 +110,7 @@ def test_loader_batch_shapes():
 
 def test_native_packer_matches_python():
     try:
-        from gluon_e2e_asr_tpu.utils.native import get_lib, pack_waves
+        from gluon_e2e_asr.utils.native import get_lib, pack_waves
     except Exception:
         pytest.skip("native module unavailable")
     if get_lib() is None:

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import Config, FrontendConfig, ModelConfig
-from gluon_e2e_asr_tpu.frontend.features import add_deltas, frontend_apply
+from gluon_e2e_asr.config import Config, FrontendConfig, ModelConfig
+from gluon_e2e_asr.frontend.features import add_deltas, frontend_apply
 
 
 def _ref_deltas(x, length, order, window=2):
@@ -80,9 +80,9 @@ def test_frontend_apply_with_deltas_end_to_end():
 
 
 def test_model_trains_with_deltas():
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.data.tokenizer import CharTokenizer
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         compute_loss, create_train_state, make_optimizer,
     )
 

@@ -3,9 +3,9 @@ bucket bound, and the trainer + decode spec construction agree."""
 
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
-from gluon_e2e_asr_tpu.data.manifest import build_synthetic_manifest
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
+from gluon_e2e_asr.data.manifest import build_synthetic_manifest
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
 import pytest
 
 
@@ -22,7 +22,7 @@ def test_dynamic_batch_dp_divisibility_guard(tmp_path):
     """Under DP every bucket's (dynamic) batch size must divide the
     device count; the trainer must refuse at init, not crash mid-epoch
     in shard_map [code-review round 2]."""
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.training.trainer import Trainer
 
     cfg = Config(
         data=DataConfig(dataset="synthetic", synth_num_train=24,
@@ -42,8 +42,8 @@ def test_dynamic_batch_dp_divisibility_guard(tmp_path):
 def test_nbest_slot_filter():
     """Unfilled n-best slots carry the beam's -1e30 sentinel — which IS
     np.isfinite — and must still be dropped [code-review round 2]."""
-    from gluon_e2e_asr_tpu.decode import filled_nbest
-    from gluon_e2e_asr_tpu.decoding.beam import NEG_INF
+    from gluon_e2e_asr.decode import filled_nbest
+    from gluon_e2e_asr.decoding.beam import NEG_INF
 
     row = [("hello", -1.2), ("hallo", -2.5), ("", NEG_INF), ("", NEG_INF)]
     assert filled_nbest(row) == [("hello", -1.2), ("hallo", -2.5)]
@@ -52,7 +52,7 @@ def test_nbest_slot_filter():
 
 @pytest.mark.slow
 def test_dynamic_batch_through_trainer(tmp_path):
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.training.trainer import Trainer
 
     cfg = Config(
         data=DataConfig(dataset="synthetic", synth_num_train=24,

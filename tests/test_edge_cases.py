@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import _parse_yaml, config_from_dict
-from gluon_e2e_asr_tpu.ops.ctc import ctc_loss
-from gluon_e2e_asr_tpu.utils.logging import percentile
+from gluon_e2e_asr.config import _parse_yaml, config_from_dict
+from gluon_e2e_asr.ops.ctc import ctc_loss
+from gluon_e2e_asr.utils.logging import percentile
 
 
 def test_ctc_infeasible_label_zeroed():
@@ -34,11 +34,11 @@ def test_ctc_infeasible_label_zeroed():
 def test_beam_pure_ctc_weight_no_collapse():
     """ctc_weight=1.0: dead beam slots must stay suppressed via the alive
     mask (the att term no longer carries their -inf)."""
-    from gluon_e2e_asr_tpu.config import Config, DecodeConfig, LossConfig, ModelConfig
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-    from gluon_e2e_asr_tpu.decoding.beam import make_beam_decoder
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.config import Config, DecodeConfig, LossConfig, ModelConfig
+    from gluon_e2e_asr.data.tokenizer import CharTokenizer
+    from gluon_e2e_asr.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer,
     )
 
@@ -68,11 +68,11 @@ def test_beam_pure_ctc_weight_no_collapse():
 
 
 def test_beam_zero_length_row():
-    from gluon_e2e_asr_tpu.config import Config, DecodeConfig, LossConfig, ModelConfig
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-    from gluon_e2e_asr_tpu.decoding.beam import make_beam_decoder
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.config import Config, DecodeConfig, LossConfig, ModelConfig
+    from gluon_e2e_asr.data.tokenizer import CharTokenizer
+    from gluon_e2e_asr.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer,
     )
 
@@ -100,7 +100,7 @@ def test_beam_zero_length_row():
 
 
 def test_greedy_zero_length_row():
-    from gluon_e2e_asr_tpu.ops.ctc import ctc_greedy_decode
+    from gluon_e2e_asr.ops.ctc import ctc_greedy_decode
 
     logits = jnp.asarray(np.random.RandomState(0).randn(2, 5, 4).astype(np.float32))
     ids, lens = ctc_greedy_decode(logits, jnp.array([5, 0], jnp.int32))
@@ -134,7 +134,7 @@ def test_yaml_scalar_type_coercion(tmp_path):
     """YAML 1.1 parses ``1e-10`` as a STRING (wants ``1.0e-10``); the
     loader must coerce parsed scalars to the dataclass field types so a
     hand-written config doesn't crash deep inside a jit trace."""
-    from gluon_e2e_asr_tpu.config import load_config
+    from gluon_e2e_asr.config import load_config
 
     p = tmp_path / "c.yaml"
     p.write_text(
@@ -155,7 +155,7 @@ def test_minimal_parser_without_pyyaml(monkeypatch):
     """Force the no-pyyaml fallback branch."""
     import builtins
 
-    from gluon_e2e_asr_tpu import config as cfg_mod
+    from gluon_e2e_asr import config as cfg_mod
 
     real_import = builtins.__import__
 

@@ -8,13 +8,13 @@ the random mode is bit-identical to its pre-knob output.
 
 import numpy as np
 
-from gluon_e2e_asr_tpu.data.manifest import (
+from gluon_e2e_asr.data.manifest import (
     build_synthetic_manifest,
     english_pool,
     english_pool_split,
     _sample_english_fragment,
 )
-from gluon_e2e_asr_tpu.data.tokenizer import DEFAULT_ALPHABET
+from gluon_e2e_asr.data.tokenizer import DEFAULT_ALPHABET
 
 
 def test_pool_loads_and_is_alphabet_clean():

@@ -47,11 +47,11 @@ def test_diff_tool_pass_and_fail(tmp_path):
 
 def test_decode_deterministic(tmp_path):
     """Same params + audio -> bitwise-identical greedy decode output."""
-    from gluon_e2e_asr_tpu.config import Config, ModelConfig, LossConfig
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-    from gluon_e2e_asr_tpu.decoding.greedy import ids_to_texts, make_greedy_decoder
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.config import Config, ModelConfig, LossConfig
+    from gluon_e2e_asr.data.tokenizer import CharTokenizer
+    from gluon_e2e_asr.decoding.greedy import ids_to_texts, make_greedy_decoder
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer,
     )
 

@@ -14,15 +14,15 @@ sys.path.insert(0, "tools")
 
 from flacenc import encode_flac, write_flac  # noqa: E402
 
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import (
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.manifest import (
     Utterance,
     build_librispeech_manifest,
     load_audio,
 )
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.utils.native import (
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.utils.native import (
     decode_flac,
     get_lib,
     load_pack_audio_batch,

@@ -14,7 +14,7 @@ import pytest
 
 sys.path.insert(0, "tools")
 
-from gluon_e2e_asr_tpu.utils.native import (  # noqa: E402
+from gluon_e2e_asr.utils.native import (  # noqa: E402
     decode_flac,
     encode_flac,
     probe_flac,

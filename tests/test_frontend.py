@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import scipy.signal
 
-from gluon_e2e_asr_tpu.config import FrontendConfig
-from gluon_e2e_asr_tpu.frontend.features import (
+from gluon_e2e_asr.config import FrontendConfig
+from gluon_e2e_asr.frontend.features import (
     apply_cmvn,
     compute_features,
     dft_basis,

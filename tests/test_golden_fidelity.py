@@ -25,7 +25,7 @@ spec.loader.exec_module(fidelity_diff)
 
 
 def _decode(method, out_path):
-    from gluon_e2e_asr_tpu import decode as decode_cli
+    from gluon_e2e_asr import decode as decode_cli
 
     return decode_cli.main([
         "--config", os.path.join(GOLD, "tiny_golden.yaml"),

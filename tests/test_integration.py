@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
-from gluon_e2e_asr_tpu.training.trainer import Trainer
+from gluon_e2e_asr.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
+from gluon_e2e_asr.training.trainer import Trainer
 
 
 def tiny_config(workdir: str, mtl_alpha=1.0, epochs=350, **kw) -> Config:
@@ -123,7 +123,7 @@ def test_metrics_io_economics_fields(tmp_path):
 @pytest.mark.slow
 def test_train_decode_cli(tmp_path):
     """The public train/decode CLI end to end [BASELINE.json:L5]."""
-    import yaml
+    import json
 
     workdir = str(tmp_path)
     cfg_path = os.path.join(workdir, "cfg.yaml")
@@ -154,11 +154,11 @@ def test_train_decode_cli(tmp_path):
         },
     }
     with open(cfg_path, "w") as f:
-        yaml.safe_dump(raw, f)
+        json.dump(raw, f)
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
-        [sys.executable, "-m", "gluon_e2e_asr_tpu.train", "--config", cfg_path],
+        [sys.executable, "-m", "gluon_e2e_asr.train", "--config", cfg_path],
         capture_output=True, text=True, cwd=repo, env=env, timeout=600,
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -168,7 +168,7 @@ def test_train_decode_cli(tmp_path):
     assert os.path.exists(best)
 
     r = subprocess.run(
-        [sys.executable, "-m", "gluon_e2e_asr_tpu.decode", "--config",
+        [sys.executable, "-m", "gluon_e2e_asr.decode", "--config",
          cfg_path, "--ckpt", best],
         capture_output=True, text=True, cwd=repo, env=env, timeout=600,
     )

@@ -7,13 +7,13 @@ import wave
 
 import numpy as np
 
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import (
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.manifest import (
     build_librispeech_manifest,
     load_audio,
 )
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
 
 
 def _write_wav(path, samples, sr=16000):

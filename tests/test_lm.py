@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import (
+from gluon_e2e_asr.config import (
     Config, DecodeConfig, LossConfig, ModelConfig,
 )
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.decoding.beam import make_beam_decoder
-from gluon_e2e_asr_tpu.models.lm import (
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.decoding.beam import make_beam_decoder
+from gluon_e2e_asr.models.lm import (
     LSTMLM, lm_logprob, lm_logprob_batch, load_lm, save_lm,
 )
 
@@ -100,7 +100,7 @@ def test_lm_logprob_batch_matches_per_row():
 def test_lm_overfit_reduces_perplexity(tmp_path):
     """A tiny LM trained on a 4-sentence corpus must overfit: dev ppl
     (same sentences) far below the uniform-vocab baseline."""
-    from gluon_e2e_asr_tpu.train_lm import train_lm
+    from gluon_e2e_asr.train_lm import train_lm
 
     cfg = Config()
     cfg.data.synth_num_train = 4
@@ -119,7 +119,7 @@ def test_lm_overfit_reduces_perplexity(tmp_path):
 
     # Overfit check wants dev == train; synthetic dev uses seed+1, so
     # instead train on extra_text = the dev transcripts.
-    from gluon_e2e_asr_tpu.train_lm import gather_texts
+    from gluon_e2e_asr.train_lm import gather_texts
 
     _, _, dev_texts = gather_texts(cfg)
     extra = tmp_path / "text.txt"
@@ -157,7 +157,7 @@ def test_lm_ckpt_roundtrip_and_vocab_guard(tmp_path):
                             lm_ckpt=path),
     )
     small_tok = CharTokenizer("abc")
-    from gluon_e2e_asr_tpu.models.asr import build_model
+    from gluon_e2e_asr.models.asr import build_model
 
     am = build_model(cfg, small_tok.vocab_size, small_tok.sos_id,
                      small_tok.eos_id)
@@ -166,8 +166,8 @@ def test_lm_ckpt_roundtrip_and_vocab_guard(tmp_path):
 
 
 def _tiny_am(tok, seed=3, att_type="add"):
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer,
     )
 
@@ -219,7 +219,7 @@ def test_beam_full_width_lm_fusion_matches_exhaustive_search():
     cfg, model, state, audio, audio_len = _tiny_am(tok, seed=5)
     lm, lm_params = _tiny_lm(tok.vocab_size, seed=9)
 
-    from gluon_e2e_asr_tpu.frontend.features import frontend_apply
+    from gluon_e2e_asr.frontend.features import frontend_apply
 
     feats, feat_len = frontend_apply(cfg.frontend, jnp.asarray(audio),
                                      jnp.asarray(audio_len), train=False)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import ModelConfig
-from gluon_e2e_asr_tpu.models.decoder import AttentionDecoder
+from gluon_e2e_asr.config import ModelConfig
+from gluon_e2e_asr.models.decoder import AttentionDecoder
 
 
 @pytest.mark.parametrize("width,T", [(5, 13), (6, 13), (100, 40), (4, 4)])

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import ModelConfig
-from gluon_e2e_asr_tpu.models.decoder import AttentionDecoder
-from gluon_e2e_asr_tpu.models.encoder import BiLSTMEncoder, subsample_concat
-from gluon_e2e_asr_tpu.models.lstm import lstm_scan
-from gluon_e2e_asr_tpu.ops.losses import make_decoder_io
+from gluon_e2e_asr.config import ModelConfig
+from gluon_e2e_asr.models.decoder import AttentionDecoder
+from gluon_e2e_asr.models.encoder import BiLSTMEncoder, subsample_concat
+from gluon_e2e_asr.models.lstm import lstm_scan
+from gluon_e2e_asr.ops.losses import make_decoder_io
 
 
 def _rand_gates(B, T, H, seed=0):

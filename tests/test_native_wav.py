@@ -1,6 +1,6 @@
 """Native wav decode + fused batch-load parity vs the Python paths.
 
-The native library (gluon_e2e_asr_tpu/native/asr_native.cpp) carries the real-corpus host
+The native library (gluon_e2e_asr/native/asr_native.cpp) carries the real-corpus host
 hot path [SURVEY.md §2.2; docs/ROADMAP.md #10]; these tests pin its
 numerics to the Python ``wave``-module reference in
 data/manifest.py::load_audio.
@@ -13,8 +13,8 @@ import wave as wave_mod
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.data.manifest import Utterance, load_audio
-from gluon_e2e_asr_tpu.utils import native
+from gluon_e2e_asr.data.manifest import Utterance, load_audio
+from gluon_e2e_asr.utils import native
 
 
 def _write_pcm16(path, data: np.ndarray, rate=16000, channels=1):
@@ -153,9 +153,9 @@ def test_load_pack_missing_file_raises(tmp_path, lib_ok):
 def test_dataloader_uses_native_wav_path(tmp_path, lib_ok):
     """End-to-end: a wav-backed manifest batched through DataLoader gives
     identical arrays with the native fused path and the Python path."""
-    from gluon_e2e_asr_tpu.data.loader import DataLoader
-    from gluon_e2e_asr_tpu.data.sampler import BucketSampler, BucketSpec
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
+    from gluon_e2e_asr.data.loader import DataLoader
+    from gluon_e2e_asr.data.sampler import BucketSampler, BucketSpec
+    from gluon_e2e_asr.data.tokenizer import CharTokenizer
 
     rng = np.random.RandomState(4)
     utts = []

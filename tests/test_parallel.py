@@ -10,19 +10,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import build_synthetic_manifest
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.parallel.mesh import (
+from gluon_e2e_asr.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.manifest import build_synthetic_manifest
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.parallel.mesh import (
     batch_sharding,
     make_mesh,
     replicated_sharding,
     shard_batch_arrays,
 )
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.training.train_step import (
     compute_loss,
     create_train_state,
     make_optimizer,
@@ -31,7 +31,7 @@ from gluon_e2e_asr_tpu.training.train_step import (
 
 
 def _setup(dp_batch=8, deterministic=False):
-    from gluon_e2e_asr_tpu.config import FrontendConfig
+    from gluon_e2e_asr.config import FrontendConfig
 
     # deterministic=True removes every stochastic draw (SpecAugment; the
     # config already has no dropout / scheduled sampling) so tests that
@@ -117,36 +117,6 @@ def test_dp_train_step_runs_and_matches():
         np.testing.assert_allclose(a, b_, rtol=2e-3, atol=2e-4)
 
 
-@pytest.mark.slow
-def test_dp_with_pallas_lstm_matches_single_device():
-    """The Pallas BiLSTM kernel composes with pjit batch sharding: XLA
-    partitions around the custom call and the result matches exactly."""
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import create_train_state
-
-    cfg, _, tx, _, batch = _setup()
-    cfg.train.dp_impl = "pjit"
-    cfg.model.lstm_impl = "pallas"
-    cfg.model.lstm_time_chunk = 4
-    tok = CharTokenizer()
-    model = build_model(cfg, tok.vocab_size, tok.sos_id, tok.eos_id)
-
-    mesh = make_mesh()
-    state = create_train_state(cfg, model, tx, batch)
-    step_dp = make_train_step(model, cfg, tx, mesh=mesh)
-    s_dp, m_dp = step_dp(state, shard_batch_arrays(mesh, batch))
-
-    state2 = create_train_state(cfg, model, tx, batch)
-    step_1 = make_train_step(model, cfg, tx, mesh=None)
-    s_1, m_1 = step_1(state2, {k: jnp.asarray(v) for k, v in batch.items()})
-    np.testing.assert_allclose(float(m_dp["loss"]), float(m_1["loss"]),
-                               rtol=1e-5)
-    for a, b in zip(jax.tree_util.tree_leaves(jax.device_get(s_dp.params)),
-                    jax.tree_util.tree_leaves(jax.device_get(s_1.params))):
-        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4)
-
-
 def test_shard_map_step_matches_single_device():
     """shard_map DP (psum(grads) on local shards) reproduces the
     single-device step exactly on a deterministic config. The loss is
@@ -188,33 +158,6 @@ def test_shard_map_step_stochastic_runs():
     assert np.isfinite(float(m2["loss"]))
 
 
-@pytest.mark.slow
-def test_shard_map_with_pallas_lstm_matches_single_device():
-    """The Pallas BiLSTM kernel runs shard-local under shard_map (the
-    whole point of dp_impl=shard_map: no XLA all-gather around the
-    custom call) and matches the single-device step exactly."""
-    cfg, _, tx, _, batch = _setup(deterministic=True)
-    cfg.train.dp_impl = "shard_map"
-    cfg.model.lstm_impl = "pallas"
-    cfg.model.lstm_time_chunk = 4
-    tok = CharTokenizer()
-    model = build_model(cfg, tok.vocab_size, tok.sos_id, tok.eos_id)
-
-    mesh = make_mesh()
-    state = create_train_state(cfg, model, tx, batch)
-    step_sm = make_train_step(model, cfg, tx, mesh=mesh)
-    s_sm, m_sm = step_sm(state, shard_batch_arrays(mesh, batch))
-
-    state2 = create_train_state(cfg, model, tx, batch)
-    step_1 = make_train_step(model, cfg, tx, mesh=None)
-    s_1, m_1 = step_1(state2, {k: jnp.asarray(v) for k, v in batch.items()})
-    np.testing.assert_allclose(float(m_sm["loss"]), float(m_1["loss"]),
-                               rtol=1e-5)
-    for a, b in zip(jax.tree_util.tree_leaves(jax.device_get(s_sm.params)),
-                    jax.tree_util.tree_leaves(jax.device_get(s_1.params))):
-        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4)
-
-
 def test_batch_sharding_layout():
     mesh = make_mesh()
     x = np.zeros((8, 16), np.float32)
@@ -225,40 +168,12 @@ def test_batch_sharding_layout():
 
 
 @pytest.mark.slow
-def test_shard_map_with_both_pallas_kernels_matches_single_device():
-    """shard_map DP with BOTH fused kernels (Pallas BiLSTM + Pallas
-    decoder) stays shard-local and matches the single-device step — the
-    full flagship compute path under the multi-chip discipline."""
-    cfg, _, tx, _, batch = _setup(deterministic=True)
-    cfg.train.dp_impl = "shard_map"
-    cfg.model.lstm_impl = "pallas"
-    cfg.model.lstm_time_chunk = 4
-    cfg.model.dec_impl = "pallas"
-    tok = CharTokenizer()
-    model = build_model(cfg, tok.vocab_size, tok.sos_id, tok.eos_id)
-
-    mesh = make_mesh()
-    state = create_train_state(cfg, model, tx, batch)
-    step_sm = make_train_step(model, cfg, tx, mesh=mesh)
-    s_sm, m_sm = step_sm(state, shard_batch_arrays(mesh, batch))
-
-    state2 = create_train_state(cfg, model, tx, batch)
-    step_1 = make_train_step(model, cfg, tx, mesh=None)
-    s_1, m_1 = step_1(state2, {k: jnp.asarray(v) for k, v in batch.items()})
-    np.testing.assert_allclose(float(m_sm["loss"]), float(m_1["loss"]),
-                               rtol=1e-5)
-    for a, b in zip(jax.tree_util.tree_leaves(jax.device_get(s_sm.params)),
-                    jax.tree_util.tree_leaves(jax.device_get(s_1.params))):
-        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4)
-
-
-@pytest.mark.slow
 def test_dp_decode_matches_single_device():
     """DP decode (shard_map over the data axis) must return the same
     transcripts as the single-device decoders on the same global batch
     [SURVEY.md §2.3 seam; decode.dp]."""
-    from gluon_e2e_asr_tpu.decoding.beam import make_beam_decoder
-    from gluon_e2e_asr_tpu.decoding.greedy import make_greedy_decoder
+    from gluon_e2e_asr.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr.decoding.greedy import make_greedy_decoder
 
     cfg, model, tx, state, batch = _setup(dp_batch=8, deterministic=True)
     cfg.decode.method = "beam"

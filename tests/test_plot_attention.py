@@ -5,7 +5,7 @@ import jax
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import (
+from gluon_e2e_asr.config import (
     Config,
     DataConfig,
     FrontendConfig,
@@ -13,12 +13,12 @@ from gluon_e2e_asr_tpu.config import (
     ModelConfig,
     TrainConfig,
 )
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import build_synthetic_manifest
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.manifest import build_synthetic_manifest
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.training.train_step import (
     create_train_state,
     make_optimizer,
 )

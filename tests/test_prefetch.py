@@ -5,10 +5,10 @@ propagation [VERDICT.md round-1 item 3 "host prefetch"]."""
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.data.loader import DataLoader, EpochPrefetcher
-from gluon_e2e_asr_tpu.data.manifest import build_synthetic_manifest
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.data.loader import DataLoader, EpochPrefetcher
+from gluon_e2e_asr.data.manifest import build_synthetic_manifest
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
 
 
 def _loader(n=24, batch=4):

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import Config, LossConfig, ModelConfig, TrainConfig
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.models.asr import build_model
+from gluon_e2e_asr.config import Config, LossConfig, ModelConfig, TrainConfig
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.models.asr import build_model
 import pytest
 
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.training.train_step import (
     create_train_state,
     make_optimizer,
     make_train_step,

@@ -16,14 +16,14 @@ invariants that make that sound:
 
 import numpy as np
 
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import build_synthetic_manifest
-from gluon_e2e_asr_tpu.data.sampler import (
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.manifest import build_synthetic_manifest
+from gluon_e2e_asr.data.sampler import (
     BucketSampler,
     make_bucket_specs,
     perturb_factor,
 )
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
 
 SP = (0.9, 1.0, 1.1)
 

@@ -12,8 +12,8 @@ import pytest
 
 sys.path.insert(0, "tools")
 
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.models.lm import LSTMLM, lm_logprob, save_lm
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.models.lm import LSTMLM, lm_logprob, save_lm
 
 
 def _tiny_lm(vocab_size, seed=0):

@@ -8,8 +8,8 @@ import os
 import jax
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
-from gluon_e2e_asr_tpu.training.trainer import Trainer
+from gluon_e2e_asr.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
+from gluon_e2e_asr.training.trainer import Trainer
 import pytest
 
 

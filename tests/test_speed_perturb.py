@@ -6,11 +6,11 @@ config.py DataConfig.speed_perturb]."""
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import config_from_dict
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import build_synthetic_manifest
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.config import config_from_dict
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.manifest import build_synthetic_manifest
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
 
 SR = 16000
 

@@ -1,4 +1,4 @@
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
 
 
 def test_special_ids():

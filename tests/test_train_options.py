@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.config import Config, DataConfig, LossConfig, ModelConfig, TrainConfig
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.training.train_step import (
     compute_loss,
     create_train_state,
     make_optimizer,
@@ -62,16 +62,15 @@ def test_remat_matches_no_remat():
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("lstm_impl", ["scan", "pallas"])
 @pytest.mark.slow
-def test_bfloat16_compute_dtype_trains(lstm_impl):
-    """compute_dtype=bfloat16 (MXU path) runs and yields finite loss close
-    to the fp32 loss, for both LSTM implementations (bf16 streams)."""
+def test_bfloat16_compute_dtype_trains():
+    """compute_dtype=bfloat16 runs and yields finite loss close to the
+    fp32 loss."""
     batch = _batch()
     tok = CharTokenizer()
     losses = {}
     for dt in ("float32", "bfloat16"):
-        cfg = _cfg(compute_dtype=dt, lstm_impl=lstm_impl, lstm_time_chunk=4)
+        cfg = _cfg(compute_dtype=dt)
         model = build_model(cfg, tok.vocab_size)
         tx = make_optimizer(cfg)
         state = create_train_state(cfg, model, tx, batch)
@@ -85,7 +84,7 @@ def test_bfloat16_compute_dtype_trains(lstm_impl):
 @pytest.mark.slow
 def test_profiler_trace_writes_files(tmp_path):
     """jax.profiler trace gating [SURVEY.md §5 tracing]."""
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.training.trainer import Trainer
 
     cfg = Config(
         data=DataConfig(dataset="synthetic", synth_num_train=8,
@@ -125,7 +124,7 @@ def test_cli_set_overrides():
     unknown keys (same strictness as the loader)."""
     import pytest
 
-    from gluon_e2e_asr_tpu.config import Config, apply_overrides
+    from gluon_e2e_asr.config import Config, apply_overrides
 
     c = Config()
     apply_overrides(c, ["model.att_type=dot", "data.batch_size=96",

@@ -1,4 +1,4 @@
-"""Manifest-free transcription CLI (gluon_e2e_asr_tpu.transcribe) —
+"""Manifest-free transcription CLI (gluon_e2e_asr.transcribe) —
 the recognize() convenience surface [SURVEY.md §3.2]."""
 
 import json
@@ -8,7 +8,7 @@ import wave
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.data.manifest import synth_waveform
+from gluon_e2e_asr.data.manifest import synth_waveform
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "tests", "goldens")
@@ -24,7 +24,7 @@ def _write_wav(path, wave_f32, sr=16000):
 
 
 def test_transcribe_wav_files(tmp_path):
-    from gluon_e2e_asr_tpu import transcribe
+    from gluon_e2e_asr import transcribe
 
     paths = []
     for i, text in enumerate(("abc", "hello")):
@@ -51,7 +51,7 @@ def test_transcribe_wav_files(tmp_path):
 def test_transcribe_long_file_gets_catch_all_bucket(tmp_path):
     """A file longer than every configured bucket bound must still be
     transcribed (catch-all bucket), not silently dropped."""
-    from gluon_e2e_asr_tpu import transcribe
+    from gluon_e2e_asr import transcribe
 
     # tiny_golden.yaml buckets end at 4.0 s; render ~5 s of audio
     w = synth_waveform("abcdefghij" * 4, seed=3)
@@ -69,7 +69,7 @@ def test_transcribe_long_file_gets_catch_all_bucket(tmp_path):
 def test_transcribe_timestamps(tmp_path):
     """--timestamps force-aligns each hypothesis and attaches monotone
     token spans to the JSONL records."""
-    from gluon_e2e_asr_tpu import transcribe
+    from gluon_e2e_asr import transcribe
 
     p = tmp_path / "utt.wav"
     _write_wav(p, synth_waveform("abc def", seed=5))
@@ -92,7 +92,7 @@ def test_transcribe_timestamps(tmp_path):
 
 
 def test_transcribe_missing_file_fails_loudly(tmp_path):
-    from gluon_e2e_asr_tpu import transcribe
+    from gluon_e2e_asr import transcribe
 
     with pytest.raises(FileNotFoundError):
         transcribe.main([

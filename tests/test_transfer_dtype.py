@@ -2,23 +2,19 @@
 
 Audio is 16-bit on disk; int16 mode ships those samples verbatim and the
 frontend reconstructs f32 on device (* 2^-15) — bitwise-identical to the
-float32 pipeline for 16-bit sources, at half the host->device bytes.
-Added by the 100 h dress rehearsal [VERDICT.md round-3 item 2]: the
-box's device plugin retains every H2D staging buffer (measured ~1:1
-with payload), so the f32 run's ~29 GB/epoch transfer volume OOM'd the
-host at epoch 4; int16 halves it, and on any host it halves PCIe/tunnel
-traffic for free.
+float32 pipeline for 16-bit sources, at half the host->device bytes
+(the 100 h rehearsal's float32 audio is ~29 GB per epoch).
 """
 
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import Config, DataConfig, FrontendConfig
-from gluon_e2e_asr_tpu.data.loader import DataLoader, _quantize_i16
-from gluon_e2e_asr_tpu.data.manifest import Utterance
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.utils import native
+from gluon_e2e_asr.config import Config, DataConfig, FrontendConfig
+from gluon_e2e_asr.data.loader import DataLoader, _quantize_i16
+from gluon_e2e_asr.data.manifest import Utterance
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.utils import native
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +63,7 @@ def test_frontend_reconstructs_f32_bitwise(tmp_path, lib_ok):
     (the on-device * 2^-15 is an exact power-of-two scale)."""
     import jax.numpy as jnp
 
-    from gluon_e2e_asr_tpu.frontend.features import frontend_apply
+    from gluon_e2e_asr.frontend.features import frontend_apply
 
     utts = _flac_corpus(tmp_path)
     bf = next(_loaders(utts, "float32").epoch(0))
@@ -111,8 +107,8 @@ def test_transfer_dtype_validated(tmp_path, lib_ok):
 def test_trainer_int16_end_to_end(tmp_path):
     """One epoch on the synthetic fixture with transfer_dtype=int16:
     the full train step + greedy dev eval run on int16 batches."""
-    from gluon_e2e_asr_tpu.config import LossConfig, ModelConfig, TrainConfig
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.config import LossConfig, ModelConfig, TrainConfig
+    from gluon_e2e_asr.training.trainer import Trainer
 
     import os
 
@@ -142,12 +138,12 @@ def test_compute_cmvn_dtype_invariant(tmp_path, lib_ok, monkeypatch):
     dequant), so an int16 loader fed it +-32767-scale samples and every
     log-mel mean inflated by log(2^30) ~= 20.8 — stats that silently
     UN-normalized training (valid-frame features at mean -17.9) and kept
-    CTC from converging for two epochs of TPU time.
+    CTC from converging for two epochs of training.
     """
     import importlib.util
     import os
 
-    import yaml
+    import json
 
     spec = importlib.util.spec_from_file_location(
         "compute_cmvn_tool",
@@ -163,10 +159,10 @@ def test_compute_cmvn_dtype_invariant(tmp_path, lib_ok, monkeypatch):
     for td in ("float32", "int16"):
         cfg_path = str(tmp_path / f"cmvn_{td}.yaml")
         with open(cfg_path, "w") as f:
-            yaml.safe_dump({"name": f"cmvn_{td}",
-                            "data": {"transfer_dtype": td,
-                                     "batch_size": 4,
-                                     "bucket_bounds_sec": [2.0]}}, f)
+            json.dump({"name": f"cmvn_{td}",
+                       "data": {"transfer_dtype": td,
+                                "batch_size": 4,
+                                "bucket_bounds_sec": [2.0]}}, f)
         out = str(tmp_path / f"cmvn_{td}.npz")
         mod.main(["--config", cfg_path, "--output", out])
         stats[td] = np.load(out)

@@ -11,7 +11,7 @@ sys.path.insert(0, "tools")
 
 from tune_decode import _parse_grid, in_holdout  # noqa: E402
 
-from gluon_e2e_asr_tpu.config import (
+from gluon_e2e_asr.config import (
     Config,
     DataConfig,
     LossConfig,
@@ -44,7 +44,7 @@ def test_holdout_split_deterministic_and_balanced():
 def test_sweep_end_to_end(tmp_path):
     """Train a tiny joint model, sweep 2 combos, check the summary picks
     the tune-best and reports its holdout number (not the grid-best)."""
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr.training.trainer import Trainer
     from tune_decode import main as tune_main
 
     cfg = Config(

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gluon_e2e_asr_tpu.config import (
+from gluon_e2e_asr.config import (
     Config, DataConfig, FrontendConfig, LossConfig, ModelConfig,
     TrainConfig, encoder_time_reduction,
 )
-from gluon_e2e_asr_tpu.models.encoder import BiLSTMEncoder
+from gluon_e2e_asr.models.encoder import BiLSTMEncoder
 
 
 def _vgg_cfg(**kw):
@@ -111,26 +111,6 @@ def test_vgg_gradients_flow():
         assert np.isfinite(k).all() and np.abs(k).max() > 0, name
 
 
-@pytest.mark.slow
-def test_vgg_with_pallas_lstm_parity():
-    """vggblstm front feeding the fused Pallas LSTM kernel == scan path
-    (the flagship encoder combination, lstm_impl=pallas)."""
-    rng = np.random.RandomState(4)
-    lens = [24, 13]
-    feats = jnp.asarray(_feats(rng, 2, 24, 40, lens))
-    feat_len = jnp.asarray(lens, jnp.int32)
-    cfg_scan = _vgg_cfg(lstm_impl="scan")
-    cfg_pl = _vgg_cfg(lstm_impl="pallas", lstm_time_chunk=8)
-    enc_scan = BiLSTMEncoder(cfg_scan, vocab_size=10)
-    enc_pl = BiLSTMEncoder(cfg_pl, vocab_size=10)
-    params = enc_scan.init(jax.random.PRNGKey(0), feats, feat_len)["params"]
-    x1, l1, _ = enc_scan.apply({"params": params}, feats, feat_len)
-    x2, l2, _ = enc_pl.apply({"params": params}, feats, feat_len)
-    np.testing.assert_array_equal(np.asarray(l1), np.asarray(l2))
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2),
-                               rtol=1e-5, atol=1e-5)
-
-
 def test_unknown_enc_type_raises():
     cfg = ModelConfig(enc_type="transformer")
     enc = BiLSTMEncoder(cfg, vocab_size=10)
@@ -143,9 +123,9 @@ def test_unknown_enc_type_raises():
 def test_vgg_train_step_end_to_end():
     """Full hybrid train step with the vggblstm encoder: loss finite and
     decreasing over a few steps on a tiny synthetic batch."""
-    from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-    from gluon_e2e_asr_tpu.models.asr import build_model
-    from gluon_e2e_asr_tpu.training.train_step import (
+    from gluon_e2e_asr.data.tokenizer import CharTokenizer
+    from gluon_e2e_asr.models.asr import build_model
+    from gluon_e2e_asr.training.train_step import (
         create_train_state, make_optimizer, make_train_step,
     )
 

@@ -1,6 +1,6 @@
 import pytest
 
-from gluon_e2e_asr_tpu.eval.metrics import (
+from gluon_e2e_asr.eval.metrics import (
     _edit_distance_py,
     align_counts,
     cer,
@@ -84,7 +84,7 @@ def test_error_report_matches_wer_cer():
 
 def test_native_matches_python():
     try:
-        from gluon_e2e_asr_tpu.utils.native import edit_distance_native, get_lib
+        from gluon_e2e_asr.utils.native import edit_distance_native, get_lib
     except Exception:
         pytest.skip("native module unavailable")
     if get_lib() is None:

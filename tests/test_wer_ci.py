@@ -14,7 +14,7 @@ spec = importlib.util.spec_from_file_location(
 wer_ci = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(wer_ci)
 
-from gluon_e2e_asr_tpu.eval.metrics import cer, wer
+from gluon_e2e_asr.eval.metrics import cer, wer
 
 
 def _write(path, pairs):

@@ -27,7 +27,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.utils.platform import configure_from_env
+from gluon_e2e_asr.utils.platform import configure_from_env
 
 configure_from_env()
 
@@ -35,20 +35,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import Config, apply_overrides, load_config
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer, tokenizer_from_json
-from gluon_e2e_asr_tpu.frontend.features import frontend_apply
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.ops.ctc import ctc_viterbi_align, spans_from_states
-from gluon_e2e_asr_tpu.training.checkpoint import restore_checkpoint
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.config import Config, apply_overrides, load_config
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer, tokenizer_from_json
+from gluon_e2e_asr.frontend.features import frontend_apply
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.ops.ctc import ctc_viterbi_align, spans_from_states
+from gluon_e2e_asr.training.checkpoint import restore_checkpoint
+from gluon_e2e_asr.training.train_step import (
     create_template_state,
     make_optimizer,
 )
-from gluon_e2e_asr_tpu.training.trainer import build_datasets
-from gluon_e2e_asr_tpu.utils.logging import JsonlLogger
+from gluon_e2e_asr.training.trainer import build_datasets
+from gluon_e2e_asr.utils.logging import JsonlLogger
 
 
 def write_ctm(fh, utt_id, spans):
@@ -82,10 +82,6 @@ def main(argv=None):
         print("warning: loss.mtl_alpha == 0 — the checkpoint has no "
               "trained CTC head; alignments will be meaningless",
               file=sys.stderr)
-
-    from gluon_e2e_asr_tpu.utils.platform import warm_device_transfer
-
-    warm_device_transfer()
 
     tokenizer = CharTokenizer()
     meta_path = args.ckpt + ".json"
@@ -135,7 +131,7 @@ def main(argv=None):
         logp = jax.nn.log_softmax(ctc_logits, axis=-1)
         return ctc_viterbi_align(logp, enc_len, labels, label_len)
 
-    from gluon_e2e_asr_tpu.config import encoder_time_reduction
+    from gluon_e2e_asr.config import encoder_time_reduction
 
     R = encoder_time_reduction(config.model)
     sec_per_frame = R * config.frontend.hop_length / config.data.sample_rate

@@ -26,15 +26,18 @@ import os
 import re
 import sys
 
-import flax.serialization
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from gluon_e2e_asr.utils import serialization  # noqa: E402
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
 
 
 def _load(path: str) -> dict:
     with open(path, "rb") as f:
-        return flax.serialization.msgpack_restore(f.read())
+        return serialization.msgpack_restore(f.read())
 
 
 def _tree_mean(trees):
@@ -108,7 +111,7 @@ def average_checkpoints(paths, out_path: str) -> dict:
     out["state"] = dict(newest["state"])
     out["state"]["params"] = _tree_mean(
         [p["state"]["params"] for p in payloads])
-    blob = flax.serialization.msgpack_serialize(out)
+    blob = serialization.msgpack_serialize(out)
     tmp = out_path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(blob)

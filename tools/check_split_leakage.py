@@ -23,8 +23,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.config import apply_overrides, load_config  # noqa: E402
-from gluon_e2e_asr_tpu.training.trainer import build_datasets  # noqa: E402
+from gluon_e2e_asr.config import apply_overrides, load_config  # noqa: E402
+from gluon_e2e_asr.training.trainer import build_datasets  # noqa: E402
 
 
 def word_ngrams(text: str, n: int):

@@ -13,7 +13,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.utils.platform import configure_from_env
+from gluon_e2e_asr.utils.platform import configure_from_env
 
 configure_from_env()
 
@@ -21,12 +21,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import Config, load_config
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer
-from gluon_e2e_asr_tpu.frontend.features import log_mel_spectrogram, num_frames
-from gluon_e2e_asr_tpu.training.trainer import build_datasets
+from gluon_e2e_asr.config import Config, load_config
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer
+from gluon_e2e_asr.frontend.features import log_mel_spectrogram, num_frames
+from gluon_e2e_asr.training.trainer import build_datasets
 
 
 def main(argv=None):

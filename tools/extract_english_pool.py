@@ -1,5 +1,5 @@
 """One-shot extractor: build the checked-in English sentence pool for the
-synthetic fixture (``gluon_e2e_asr_tpu/data/english_pool.txt``).
+synthetic fixture (``gluon_e2e_asr/data/english_pool.txt``).
 
 VERDICT.md round-2 item 1: the synthetic corpus previously used *random*
 token sequences, so every language-dependent recipe experiment (LM
@@ -20,7 +20,7 @@ Usage::
 
     python tools/extract_english_pool.py \
         --source /usr/lib/python3.11/pydoc_data/topics.py \
-        --out gluon_e2e_asr_tpu/data/english_pool.txt
+        --out gluon_e2e_asr/data/english_pool.txt
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def main(argv=None) -> None:
     p.add_argument("--source",
                    default="/usr/lib/python3.11/pydoc_data/topics.py")
     p.add_argument("--out",
-                   default="gluon_e2e_asr_tpu/data/english_pool.txt")
+                   default="gluon_e2e_asr/data/english_pool.txt")
     p.add_argument("--min-words", type=int, default=5)
     p.add_argument("--max-words", type=int, default=28)
     p.add_argument("--max-loss-frac", type=float, default=0.12)

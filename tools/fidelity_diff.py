@@ -4,7 +4,7 @@
 Golden workflow: a blessed decode output is checked in (or regenerated
 with an explicit flag); CI decodes with the current code and diffs:
 
-    python -m gluon_e2e_asr_tpu.decode ... --output new.jsonl
+    python -m gluon_e2e_asr.decode ... --output new.jsonl
     python tools/fidelity_diff.py golden.jsonl new.jsonl [--score-tol 1e-4]
 
 Exit code 0 iff every utterance's hypothesis matches (and scores agree

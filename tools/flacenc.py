@@ -2,7 +2,7 @@
 
 The image ships no FLAC tooling (no libFLAC/ffmpeg/soundfile — verified),
 yet LibriSpeech distributes `.flac`, so the native decoder in
-``gluon_e2e_asr_tpu/native/asr_native.cpp`` needs spec-compliant streams
+``gluon_e2e_asr/native/asr_native.cpp`` needs spec-compliant streams
 to be tested against, and synthetic on-disk corpora want the real
 LibriSpeech container format [VERDICT.md round-1 item 2].
 

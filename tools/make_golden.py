@@ -26,7 +26,7 @@ sys.path.insert(0, REPO)
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 
-from gluon_e2e_asr_tpu.utils.platform import configure_from_env
+from gluon_e2e_asr.utils.platform import configure_from_env
 
 configure_from_env()
 
@@ -45,9 +45,9 @@ def main(argv=None):
     p.add_argument("--workdir", default="/tmp/make_golden")
     args = p.parse_args(argv)
 
-    from gluon_e2e_asr_tpu import decode as decode_cli
-    from gluon_e2e_asr_tpu.config import load_config
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
+    from gluon_e2e_asr import decode as decode_cli
+    from gluon_e2e_asr.config import load_config
+    from gluon_e2e_asr.training.trainer import Trainer
 
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)

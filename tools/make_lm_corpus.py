@@ -13,7 +13,7 @@ Usage::
 
     python tools/make_lm_corpus.py --config configs/english_m5.yaml \
         --out /tmp/lm_corpus.txt
-    python -m gluon_e2e_asr_tpu.train_lm --config configs/english_m5.yaml \
+    python -m gluon_e2e_asr.train_lm --config configs/english_m5.yaml \
         --workdir runs/english_lm --set lm.extra_text=/tmp/lm_corpus.txt
 """
 
@@ -25,9 +25,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.config import apply_overrides, load_config  # noqa: E402
-from gluon_e2e_asr_tpu.data.manifest import english_pool  # noqa: E402
-from gluon_e2e_asr_tpu.training.trainer import build_datasets  # noqa: E402
+from gluon_e2e_asr.config import apply_overrides, load_config  # noqa: E402
+from gluon_e2e_asr.data.manifest import english_pool  # noqa: E402
+from gluon_e2e_asr.training.trainer import build_datasets  # noqa: E402
 
 
 def main(argv=None) -> None:
@@ -48,7 +48,7 @@ def main(argv=None) -> None:
         # are rejected if present in train-side text). The window filter
         # below still runs as a belt-and-braces assertion — it must drop
         # nothing.
-        from gluon_e2e_asr_tpu.data.manifest import english_pool_split
+        from gluon_e2e_asr.data.manifest import english_pool_split
         pool = english_pool_split("train")
     else:
         pool = english_pool()

@@ -28,7 +28,7 @@ Usage::
     python tools/make_synth_corpus.py --out /tmp/ls_shape \
         --num-train 5000 --num-dev 512 --text-mode english \
         --durations librispeech --jitter 0.04 --noise 0.05
-    python -m gluon_e2e_asr_tpu.train --config configs/milestone1_bilstm_ctc.yaml \
+    python -m gluon_e2e_asr.train --config configs/milestone1_bilstm_ctc.yaml \
         --workdir /tmp/run --set data.dataset=librispeech \
         --set data.data_dir=/tmp/corpus
 """
@@ -46,7 +46,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.data.manifest import (  # noqa: E402
+from gluon_e2e_asr.data.manifest import (  # noqa: E402
     _GAP_SEC,
     _SEG_SEC,
     _sample_english_fragment,
@@ -95,15 +95,15 @@ def _ls_duration_utts(split: str, num_utts: int, seed: int, text_mode: str,
                       noise: float, jitter: float,
                       pool_split: str = "none"):
     """Utterance list with LibriSpeech-like duration distribution."""
-    from gluon_e2e_asr_tpu.data.manifest import Utterance
-    from gluon_e2e_asr_tpu.data.tokenizer import DEFAULT_ALPHABET
+    from gluon_e2e_asr.data.manifest import Utterance
+    from gluon_e2e_asr.data.tokenizer import DEFAULT_ALPHABET
 
     mean, std, lo, hi = _LS_DUR[split]
     rng = np.random.RandomState(seed)
     letters = [c for c in DEFAULT_ALPHABET if c.isalpha()]
     pool = forbid = None
     if text_mode == "english" and pool_split == "sentence":
-        from gluon_e2e_asr_tpu.data.manifest import english_pool_split
+        from gluon_e2e_asr.data.manifest import english_pool_split
         side = "dev" if split.startswith("dev") else "train"
         pool = english_pool_split(side)
         if side == "dev":
@@ -136,7 +136,7 @@ def _write_one(job: Tuple[str, str, int, str, int, float, float]) -> int:
     pcm = np.clip(np.round(wav * 32767.0), -32768, 32767).astype(np.int64)
     if fmt == "flac":
         try:
-            from gluon_e2e_asr_tpu.utils.native import encode_flac
+            from gluon_e2e_asr.utils.native import encode_flac
 
             encode_flac(path, pcm.astype(np.int16), sample_rate)
         except Exception:

@@ -21,7 +21,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.utils.platform import configure_from_env
+from gluon_e2e_asr.utils.platform import configure_from_env
 
 configure_from_env()
 
@@ -29,18 +29,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gluon_e2e_asr_tpu.config import Config, apply_overrides, load_config
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer, tokenizer_from_json
-from gluon_e2e_asr_tpu.frontend.features import frontend_apply
-from gluon_e2e_asr_tpu.models.asr import build_model
-from gluon_e2e_asr_tpu.training.checkpoint import restore_checkpoint
-from gluon_e2e_asr_tpu.training.train_step import (
+from gluon_e2e_asr.config import Config, apply_overrides, load_config
+from gluon_e2e_asr.data.loader import DataLoader
+from gluon_e2e_asr.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr.data.tokenizer import CharTokenizer, tokenizer_from_json
+from gluon_e2e_asr.frontend.features import frontend_apply
+from gluon_e2e_asr.models.asr import build_model
+from gluon_e2e_asr.training.checkpoint import restore_checkpoint
+from gluon_e2e_asr.training.train_step import (
     create_template_state,
     make_optimizer,
 )
-from gluon_e2e_asr_tpu.training.trainer import build_datasets
+from gluon_e2e_asr.training.trainer import build_datasets
 
 
 def attention_maps(model, params, config, batch, cmvn_stats=None):

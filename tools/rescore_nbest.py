@@ -26,7 +26,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from gluon_e2e_asr_tpu.utils.platform import configure_from_env
+from gluon_e2e_asr.utils.platform import configure_from_env
 
 configure_from_env()
 
@@ -47,10 +47,10 @@ def main(argv=None):
     p.add_argument("--output", default="")
     args = p.parse_args(argv)
 
-    from gluon_e2e_asr_tpu.data.tokenizer import (CharTokenizer,
+    from gluon_e2e_asr.data.tokenizer import (CharTokenizer,
                                                     tokenizer_from_json)
-    from gluon_e2e_asr_tpu.eval.metrics import edit_distance, wer
-    from gluon_e2e_asr_tpu.models.lm import lm_logprob_batch, load_lm
+    from gluon_e2e_asr.eval.metrics import edit_distance, wer
+    from gluon_e2e_asr.models.lm import lm_logprob_batch, load_lm
 
     model, params, meta = load_lm(args.lm)
     tokenizer = (tokenizer_from_json(meta["vocab"])

@@ -1,8 +1,8 @@
 """Run every milestone config end to end (train -> decode) and print a
-summary table — fills the BASELINE.md measured-baselines rows
-[BASELINE.json:L6-L12].
+summary table [BASELINE.json:L6-L12]. Milestone 2 (the fused frontend
+kernel) was retired with the kernel.
 
-    python tools/run_milestones.py [--workdir /tmp/milestones] [--only 1,2]
+    python tools/run_milestones.py [--workdir /tmp/milestones] [--only 1,3]
 """
 
 import argparse
@@ -13,13 +13,12 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.utils.platform import configure_from_env
+from gluon_e2e_asr.utils.platform import configure_from_env
 
 configure_from_env()
 
 CONFIGS = [
     ("m1", "configs/milestone1_bilstm_ctc.yaml"),
-    ("m2", "configs/milestone2_fused_frontend.yaml"),
     ("m3", "configs/milestone3_las.yaml"),
     ("m4", "configs/milestone4_hybrid_dp.yaml"),
     ("m5", "configs/milestone5_beam.yaml"),
@@ -34,9 +33,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     only = {f"m{s.strip()}" for s in args.only.split(",") if s.strip()}
 
-    from gluon_e2e_asr_tpu.config import load_config
-    from gluon_e2e_asr_tpu.training.trainer import Trainer
-    from gluon_e2e_asr_tpu import decode as decode_cli
+    from gluon_e2e_asr.config import load_config
+    from gluon_e2e_asr.training.trainer import Trainer
+    from gluon_e2e_asr import decode as decode_cli
 
     results = []
     for name, cfg_path in CONFIGS:

@@ -100,7 +100,7 @@ def main():
                         "utterance contributes duration/f per factor)")
     args = p.parse_args()
 
-    from gluon_e2e_asr_tpu.data.manifest import (
+    from gluon_e2e_asr.data.manifest import (
         build_synthetic_manifest, load_manifest,
     )
 

@@ -33,34 +33,34 @@ import zlib
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.utils.platform import configure_from_env
+from gluon_e2e_asr.utils.platform import configure_from_env
 
 configure_from_env()
 
 import jax.numpy as jnp  # noqa: E402
 
-from gluon_e2e_asr_tpu.config import (  # noqa: E402
+from gluon_e2e_asr.config import (  # noqa: E402
     Config,
     apply_overrides,
     load_config,
 )
-from gluon_e2e_asr_tpu.data.loader import DataLoader  # noqa: E402
-from gluon_e2e_asr_tpu.data.sampler import (  # noqa: E402
+from gluon_e2e_asr.data.loader import DataLoader  # noqa: E402
+from gluon_e2e_asr.data.sampler import (  # noqa: E402
     BucketSampler,
     make_bucket_specs,
 )
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer  # noqa: E402
-from gluon_e2e_asr_tpu.decoding.beam import make_beam_decoder  # noqa: E402
-from gluon_e2e_asr_tpu.eval.metrics import wer  # noqa: E402
-from gluon_e2e_asr_tpu.models.asr import build_model  # noqa: E402
-from gluon_e2e_asr_tpu.training.checkpoint import (  # noqa: E402
+from gluon_e2e_asr.data.tokenizer import CharTokenizer  # noqa: E402
+from gluon_e2e_asr.decoding.beam import make_beam_decoder  # noqa: E402
+from gluon_e2e_asr.eval.metrics import wer  # noqa: E402
+from gluon_e2e_asr.models.asr import build_model  # noqa: E402
+from gluon_e2e_asr.training.checkpoint import (  # noqa: E402
     restore_checkpoint,
 )
-from gluon_e2e_asr_tpu.training.train_step import (  # noqa: E402
+from gluon_e2e_asr.training.train_step import (  # noqa: E402
     create_template_state,
     make_optimizer,
 )
-from gluon_e2e_asr_tpu.training.trainer import build_datasets  # noqa: E402
+from gluon_e2e_asr.training.trainer import build_datasets  # noqa: E402
 
 _BOOL = {"true": True, "false": False}
 
@@ -110,10 +110,6 @@ def main(argv=None):
     config = load_config(args.config)
     apply_overrides(config, args.set)
     config.decode.method = "beam"
-
-    from gluon_e2e_asr_tpu.utils.platform import warm_device_transfer
-
-    warm_device_transfer()
 
     tokenizer = CharTokenizer()
     _, dev_utts = build_datasets(config)

@@ -17,7 +17,7 @@ import numpy as np
 sys.path.insert(0, __import__("os").path.dirname(
     __import__("os").path.dirname(__import__("os").path.abspath(__file__))))
 
-from gluon_e2e_asr_tpu.eval.metrics import edit_distance
+from gluon_e2e_asr.eval.metrics import edit_distance
 
 
 def per_utt_counts(path, keyed=False):
